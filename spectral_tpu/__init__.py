@@ -1,4 +1,4 @@
-"""spectral_tpu — a TPU-native signal-analysis framework (JAX/XLA/Pallas).
+"""spectral_tpu — an accelerator-native signal-analysis framework (JAX/XLA).
 
 Rebuilds the capabilities of the reference PyQt desktop tool
 Karmotr1ne/Spectrogram-Generator (see SURVEY.md) as a headless-first,

@@ -64,7 +64,10 @@ class ServeClient:
         defines there (only `--cpu` is) and after it otherwise, so
         spawn(["--cpu", "--max-sessions", "4"]) does what it looks like.
         The worker is torn down by close()/__exit__ (shutdown request,
-        then kill as a backstop)."""
+        then kill as a backstop). The worker is a JAX process of its own:
+        on a GPU it needs a card that no other JAX process holds (JAX
+        reserves most of a card's memory per process), so spawn it with
+        `--cpu` from a process that uses the card."""
         pre = [a for a in extra_args if a == "--cpu"]
         post = [a for a in extra_args if a != "--cpu"]
         cmd = [python or sys.executable, "-m", "spectral_tpu.cli",

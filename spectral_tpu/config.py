@@ -54,11 +54,9 @@ class SpecConfig:
     mel_fmin: float = 0.0
     mel_fmax: Optional[float] = None  # None => fs / 2
     mel_htk: bool = False  # False => Slaney-style mel + normalization
-    # Matmul precision: 'accurate' (f32 6-pass, 3e-4 dB vs scipy — the
-    # contract default) or 'fast' (bf16 3-pass, ~5e-2 dB, 36% faster —
-    # display-only; XLA paths only: Mosaic lacks the algorithm, so the
-    # Pallas kernel always runs full precision). Measurements in
-    # core/stft.matmul_precision.
+    # Matmul precision of the DFT matmul engines: 'accurate' (full f32
+    # products — the 1e-3 dB contract default) or 'fast' (bf16 3-pass,
+    # about 5e-2 dB — display-only). See core/stft.matmul_precision.
     precision: str = "accurate"
 
     def __post_init__(self):

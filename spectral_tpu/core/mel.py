@@ -1,11 +1,11 @@
-"""Mel filterbank as an MXU matmul.
+"""Mel filterbank as a matmul.
 
 The reference has no mel path (it masks linear-frequency PSD rows,
 PlotEngine.py:114-115); the north-star configs (BASELINE.json config 2: 128-bin
 mel spectrograms) require one. The filterbank is a precomputed
 (n_mels, n_freqs) matrix built host-side in float64; applying it is a single
-matmul over the frequency axis, which XLA tiles onto the MXU and fuses with the
-surrounding elementwise ops.
+matmul over the frequency axis, which XLA fuses with the surrounding
+elementwise ops.
 
 Supports HTK mel (2595 * log10(1 + f/700)) and Slaney-style mel (linear below
 1 kHz, log above) with optional Slaney area normalization, matching the
@@ -107,7 +107,7 @@ def mel_filterbank(n_mels: int, n_freqs: int, fs: float, fmin: float = 0.0,
 def apply_mel(psd: Array, fb: np.ndarray) -> Array:
     """Apply a mel filterbank to a frame-major PSD: (..., T, F) -> (..., T, M).
 
-    One matmul on the MXU; fb is a baked-in constant.
+    One matmul; fb is a baked-in constant.
     """
     fbT = jnp.asarray(fb.T, psd.dtype)  # (F, M)
     return jnp.matmul(psd, fbT, precision=jax.lax.Precision.HIGHEST)

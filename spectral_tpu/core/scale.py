@@ -12,7 +12,7 @@ Exact reproduction of the reference's post-processing (PlotEngine.py:126-131):
 The ``global_max`` parameter mirrors PlotEngine.plot_extra/_plot_spectrogram's
 ``global_max`` argument (PlotEngine.py:78,110,126): when a batch of sweeps is
 normalized against a shared maximum. Under pjit with a sharded batch, taking
-``jnp.max`` over the whole batch produces that shared maximum with an ICI
+``jnp.max`` over the whole batch produces that shared maximum with an
 all-reduce inserted by XLA automatically.
 """
 
@@ -69,8 +69,8 @@ def _display_map(sxx: Array, base_max: Array, ext_min: Array,
     db = db_of(sxx)
     rescaled = (db - min_db) / jnp.where(rng > 1e-6, rng, 1.0)
     # The reference's numpy division lands the max pixel at exactly 1.0;
-    # XLA:TPU rewrites x/rng as x * (1/rng), whose double rounding can
-    # overshoot by 1 ulp (measured 1.0000001 on v5e). Clip to the
+    # an accelerator compiler may rewrite x/rng as x * (1/rng), whose
+    # double rounding can overshoot by 1 ulp (1.0000001). Clip to the
     # reference's value range — an identity wherever the division is
     # exact, so CPU parity tests are unaffected.
     rescaled = jnp.clip(rescaled, 0.0, 1.0)
@@ -113,7 +113,7 @@ def normalize_batch(sxx_batch: Array, log_scale: bool = False,
     across the batch — the reference's global_max workflow (one base across
     the batch, PlotEngine.py:78,110,126); the dB min-max rescale stays
     per-image, as each reference figure rescales its own dB range. Under
-    pjit with a sharded batch the shared max becomes an ICI all-reduce."""
+    pjit with a sharded batch the shared max becomes an all-reduce."""
     if share_max:
         gm = jnp.max(sxx_batch)
         return jax.vmap(lambda s: normalize(s, log_scale, gm))(sxx_batch)

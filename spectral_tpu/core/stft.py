@@ -14,14 +14,14 @@ mode="psd")`` at PlotEngine.py:113 (and :232), with all scipy defaults:
   * boundary   : none (trailing samples that do not fill a segment are dropped)
 
 plus a generalized mode (explicit hop, hann/hamming/..., optional centering)
-for the north-star configurations. TPU-first design notes:
+for the north-star configurations. Design notes:
 
   * framing is expressed as reshape + static strided slices + concat (no
     gather) when gcd(nperseg, hop) > 1, which XLA lowers to cheap data
     movement; a gather fallback covers pathological hops;
   * the DFT can be computed either with jnp.fft.rfft or as two real matmuls
-    against a window-folded DFT matrix (MXU-friendly; constant-detrend is
-    folded into the matrix as well) — see :func:`dft_matrices`;
+    against a window-folded DFT matrix (one GEMM per part; constant-detrend
+    is folded into the matrix as well) — see :func:`dft_matrices`;
   * everything is shape-static given (len(x), SpecConfig) and vmaps over a
     leading batch dimension.
 """
@@ -112,8 +112,7 @@ def frame_signal(x: Array, nperseg: int, hop: int) -> Array:
 
     # Fallback: explicit gather (rare: gcd == 1). Indices are built with
     # traced iota, NOT a numpy constant: an (nf, nperseg) int array would
-    # embed in the program (~40 MB for a 2 M-sample signal at 1023/256)
-    # and long recordings would trip the remote-compile constant limit.
+    # embed in the program (~40 MB for a 2 M-sample signal at 1023/256).
     idx = (jnp.arange(nf, dtype=jnp.int32)[:, None] * hop
            + jnp.arange(nperseg, dtype=jnp.int32)[None, :])
     return x[..., idx]
@@ -198,7 +197,7 @@ def time_axis(cfg: SpecConfig, fs: float, n: int) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# DFT-as-matmul constants (MXU path; constant detrend folded in)
+# DFT-as-matmul constants (GEMM path; constant detrend folded in)
 # ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=16)
@@ -212,7 +211,7 @@ def dft_matrices(cfg: SpecConfig) -> Tuple[np.ndarray, np.ndarray]:
         X_re = f @ A_re,  X_im = f @ A_im
         A[n,k] = w[n] c/s(-2π n k / nfft);  A <- (I - 1 1ᵀ/N) A  (detrend)
 
-    so the full STFT is two MXU matmuls over the framed signal.
+    so the full STFT is two matmuls over the framed signal.
     """
     N = cfg.nperseg
     nfft = cfg.nfft_
@@ -237,8 +236,9 @@ def dft_matrices(cfg: SpecConfig) -> Tuple[np.ndarray, np.ndarray]:
 
 # Constant-size threshold above which the DFT matrices are generated on
 # device instead of baked into the program: 2 matrices at nperseg=2048 are
-# already ~19 MB of f32 constants, which bloats executables and overflows
-# remote-compile request limits.
+# already ~19 MB of f32 constants, which bloats executables. The value was
+# set for the previous accelerator's compile service and is not measured on
+# the H100 (ROADMAP S6).
 DEVICE_DFT_BYTES = 8 * 2 ** 20
 
 
@@ -271,8 +271,8 @@ def dft_matrices_device(cfg: SpecConfig, dtype=jnp.float32):
         q2 = c / jnp.sqrt(jnp.sum(c * c))
         Q = jnp.concatenate([q1, q2], axis=1)
         # HIGHEST: these projections bake into the DFT matrices themselves,
-        # and the TPU-default dot's bf16 rounding would put ~1e-2 relative
-        # error into every matrix entry
+        # and a default-precision dot (TF32 on the GPU) would put its
+        # operand rounding into every matrix entry
         hp = jax.lax.Precision.HIGHEST
         a_re = a_re - jnp.matmul(Q, jnp.matmul(Q.T, a_re, precision=hp),
                                  precision=hp)
@@ -288,69 +288,39 @@ def use_device_dft(cfg: SpecConfig) -> bool:
 
 
 def default_use_matmul(cfg: Optional[SpecConfig] = None) -> bool:
-    """Backend- and shape-aware engine auto-routing for ``use_matmul=None``.
+    """The engine ``use_matmul=None`` resolves to: XLA's FFT engine (rFFT;
+    cuFFT on the GPU) on every backend and at every shape.
 
-    On TPU the MXU matmul engine (dense window-folded DFT below
-    CT_MIN_NFFT, two-stage Cooley-Tukey factorization at and above it)
-    measured faster than XLA's rFFT at nearly every size on v5e —
-    1024/256: 0.0693 vs 0.1259 ms/clip; scipy-default 1024: 0.0323 vs
-    0.0484; scipy-default 8192 (CT): 0.0376 vs 0.0474 (BENCH_REPORT
-    stft_* rows) — so TPU routes to the matmul engine, with ONE measured
-    exception: at nfft=128 every matmul variant (HIGHEST, bf16x3, even
-    1-pass bf16) lands ~0.034-0.056 ms/clip vs rFFT's 0.028-0.052 at
-    every hop tried (112/64/32; 1.06-2x), a shape-specific lowering
-    pathology — framing alone is 0.020 and the same matmul at nfft=192
-    adds only 0.003, so it is not compute- or precision-bound. nfft=128
-    therefore routes to the FFT engine. (nfft=256 is hop-dependent noise,
-    within +-25% both ways, and stays on the default matmul route; 64 and
-    32 favor matmul.) Everywhere else (CPU/GPU) the O(N log N) FFT wins
-    by orders of magnitude over a dense O(N^2) matmul, so non-TPU
-    backends route to the FFT engine.
-
-    Resolved at trace time from the process default backend; pass an
-    explicit ``use_matmul=True/False`` to pin an engine.
+    The dense window-folded DFT and the two-stage Cooley-Tukey matmul
+    engines run when pinned with ``use_matmul=True``. Which engine wins
+    each shape on the H100 is not measured yet (ROADMAP S2); this function
+    is the one place that decision will live.
     """
-    try:
-        if jax.default_backend() != "tpu":
-            return False
-    except Exception:  # pragma: no cover - backend init failure
-        return False
-    return cfg is None or cfg.nfft_ != 128
+    return False
 
 
 def matmul_precision(cfg: SpecConfig):
-    """MXU precision for the DFT matmuls, measured on v5e (0.0811 / 0.0519 /
-    0.0264 ms/clip at the headline config):
+    """Dot precision of the DFT matmul engines, by ``cfg.precision``:
 
-      'accurate' -> f32 6-pass (Precision.HIGHEST): 3e-4 dB vs scipy f64 —
-                    the production default, inside the 1e-3 dB contract;
-      'fast'     -> bf16 3-pass (DotAlgorithmPreset.BF16_BF16_F32_X3): 36%
-                    faster at ~5e-2 dB — fine for display-only use, NOT for
-                    the scipy contract. (A plain single-pass bf16 dot loses
-                    the spectrum entirely: 17 dB error.)
+      'accurate' -> Precision.HIGHEST: full f32 products (never TF32 on the
+                    GPU) — the production default, inside the 1e-3 dB
+                    contract;
+      'fast'     -> DotAlgorithmPreset.BF16_BF16_F32_X3: three bf16 passes
+                    with f32 accumulation — display-only (README: about
+                    5e-2 dB), NOT for the scipy contract. A plain
+                    single-pass bf16 dot loses the spectrum entirely.
 
-    Measured dead end (v5e, 2026-08-19), recorded so nobody re-tries it: a
-    4-pass "compensated X3" — X3(A,W) + dot(A-bf16(A), W-bf16(W)) — times at
-    0.041 ms/clip (21% under HIGHEST) but its raw matmul error is IDENTICAL
-    to plain X3 (1.54e-5/scale vs HIGHEST's 1.53e-7 on the headline
-    622x1024 @ 1024x513 dot). The X3 error is NOT the missing lo*lo product;
-    it is the 2-way bf16 split's representation truncation (the third 8-bit
-    mantissa chunk, ~2^-16, enters via a3*b1 + a1*b3), which no add-on pass
-    over the 2-way residuals can recover — only the 6-pass 3-way-split X6
-    (== HIGHEST on f32) restores contract accuracy. X9 and F32_F32_F32
-    presets fail to compile on this toolchain (tpu_compile_helper exit 1).
-    There is no useful tier between 3 and 6 passes.
+    There is no useful tier between 3 and 6 passes: a 4-pass
+    "compensated X3" — X3(A,W) + dot(A-bf16(A), W-bf16(W)) — has exactly
+    X3's error, because that error is the 2-way bf16 split's
+    representation truncation (the third 8-bit mantissa chunk enters via
+    a3*b1 + a1*b3), which no add-on pass over the 2-way residuals can
+    recover. chip_smoke.py prints the 'fast' tier's error on the card; a
+    compiler that refuses the preset fails the call loudly.
     """
     if cfg.precision == "accurate":
         return jax.lax.Precision.HIGHEST
-    try:
-        return jax.lax.DotAlgorithmPreset.BF16_BF16_F32_X3
-    except AttributeError:  # pragma: no cover - older jax
-        # degrade to the ACCURATE tier, not Precision.DEFAULT: the default
-        # single-pass bf16 dot loses the spectrum entirely (17 dB error per
-        # the measurements above) — slower-but-correct is the only safe
-        # fallback when the 3-pass algorithm is unavailable
-        return jax.lax.Precision.HIGHEST
+    return jax.lax.DotAlgorithmPreset.BF16_BF16_F32_X3
 
 
 # ---------------------------------------------------------------------------
@@ -389,9 +359,9 @@ def stft(x: Array, cfg: SpecConfig,
          use_matmul: Optional[bool] = None) -> Array:
     """Complex STFT: (..., n) -> (..., nframes, n_freqs), frame-major.
 
-    use_matmul selects the MXU real-DFT path (covers nfft >= nperseg,
-    including scipy's zero-padded transforms); None auto-routes per
-    backend (:func:`default_use_matmul`).
+    use_matmul selects the matmul real-DFT path (covers nfft >= nperseg,
+    including scipy's zero-padded transforms); None auto-routes
+    (:func:`default_use_matmul`).
     """
     if use_matmul is None:
         use_matmul = default_use_matmul(cfg)
@@ -412,16 +382,17 @@ def stft(x: Array, cfg: SpecConfig,
 
 # Below this nfft the dense window-folded DFT holds its own (one matmul,
 # perfect fusion) and the factorized path's display-dB error exceeds the
-# matmul-tier budget (5.9e-3 dB at 1024); at and above it the two-stage
-# factorization's FLOP cut wins outright (threshold measured on v5e — see
-# the docstring of _ct_dft).
+# matmul-tier budget; at and above it the two-stage factorization cuts the
+# FLOPs ~20x at 8192. The threshold was tuned on the previous accelerator
+# and is not measured on the H100 (ROADMAP S6).
 CT_MIN_NFFT = 2048
 
 
 def ct_factors(cfg: SpecConfig) -> Optional[Tuple[int, int]]:
     """(N1, N2) for the Cooley-Tukey two-stage DFT, or None when the dense
-    path should be used. N1 = 128 keeps stage 1's DFT matrix exactly one
-    MXU tile. nfft > nperseg (zero-padded transforms, scipy's nfft arg) is
+    path should be used. N1 = 128 is a tile size chosen for the previous
+    accelerator, not measured on the H100 (ROADMAP S6). nfft > nperseg
+    (zero-padded transforms, scipy's nfft arg) is
     handled by padding the windowed frames to nfft before the stages.
 
     Zero-padding can pair a small nperseg with a large nfft; the dense
@@ -460,7 +431,7 @@ def _ct_matrices(nfft: int, N1: int, N2: int, onesided: bool):
 
 def _ct_dft(x: Array, cfg: SpecConfig, factors: Tuple[int, int]
             ) -> Tuple[Array, Array]:
-    """Two-stage (Cooley-Tukey) DFT as batched MXU matmuls.
+    """Two-stage (Cooley-Tukey) DFT as batched matmuls.
 
     With n = N2*n1 + n2 and k = k1 + N1*k2:
       stage 1: A[n2, k1] = sum_n1 x[n1, n2] W_N1^{n1 k1}
@@ -469,15 +440,10 @@ def _ct_dft(x: Array, cfg: SpecConfig, factors: Tuple[int, int]
 
     FLOPs per frame drop from 2*N*(N/2+1) (dense real DFT) to
     ~2*N*N1 + 4*N*K2 — ~20x at nfft=8192 — while every contraction
-    stays a well-shaped MXU matmul. Measured on v5e (ms/clip, scipy
-    hop, 10 s @ 16 kHz, amortized whole-output-checksum timer, one
-    process back to back): 8192: 0.088 CT vs 0.524 dense vs 0.078
-    XLA-rFFT; 4096: 0.079 / 0.205 / 0.084; 2048: 0.081 / 0.115 /
-    0.080. Unlike the dense path the window cannot fold into the
-    transform, so frames are prepped explicitly (same elementwise prep
-    as the rFFT engine); accuracy is BETTER than dense (shorter dot
-    chains: ~4e-7 relative vs scipy f64 vs dense's 1.6e-6 at 8192;
-    display error ≤1e-3 dB at every CT size — inside the contract)."""
+    stays a well-shaped matmul. Unlike the dense path the window cannot
+    fold into the transform, so frames are prepped explicitly (same
+    elementwise prep as the rFFT engine); accuracy is better than dense
+    (shorter dot chains)."""
     frames = _prep_frames(x, cfg)                     # (..., T, nperseg)
     w = jnp.asarray(_window_f64(cfg), frames.dtype)
     fw = frames * w
@@ -530,9 +496,9 @@ def ct_dft_frames(fw: Array, nfft: int, factors: Tuple[int, int],
     Xim = (jnp.einsum("...sk,sm->...mk", Bre, W2s, precision=prec)
            + jnp.einsum("...sk,sm->...mk", Bim, W2c, precision=prec))
     if compensate:
-        # the residual is O(eps * |A|): single-pass bf16 suffices (its
-        # own error lands at O(1e-2 * eps), two orders below the term
-        # being recovered; bf16's 8-bit exponent holds the tiny scale).
+        # the residual is O(eps * |A|): one default-precision pass (TF32
+        # on the GPU) suffices — its own error lands orders of magnitude
+        # below the term being recovered.
         # This is the ONE deliberate exemption to CLAUDE.md's
         # HIGHEST-on-contract-paths rule; the exact HIGHEST/DEFAULT dot
         # mix of the route is pinned by
@@ -562,17 +528,14 @@ def ct_dft_frames(fw: Array, nfft: int, factors: Tuple[int, int],
 # Dekker two-product), and the DFT is linear, so the lost bits ride a
 # second, CHEAP transform of the residual (|X+R|^2 in the sum form). The
 # twiddle step's rounding — the dominant transform-internal term — is
-# recovered the same way inside ct_dft_frames(compensate=True). Measured
-# on the v5e chip (white noise, display-dB error vs scipy f64, the driver
-# artifact's metric): 8192: 9.63e-4 -> 9.3e-5; 4096: 5.14e-4 -> 1.5e-4;
-# 2048: 7.02e-4 -> 2.0e-4 — a 10x margin under the 1e-3 contract at its
-# worst point. Cost: ~+50% on this path (0.089 -> 0.132 ms/clip at 8192,
-# amortized chip timing; elementwise-EFT-bound, not matmul-bound) — paid
-# only on the 'accurate' tier's CT route (nfft >= 2048 display/analysis
-# configs), never on the dense headline path. The residuals are ~eps
-# scale, so their transforms tolerate single-pass bf16 (error
-# contribution ~1e-2 * eps; verified on chip: identical display error vs
-# 3-pass). TPU note: the Dekker split constant 4097 = 2^12+1 is
+# recovered the same way inside ct_dft_frames(compensate=True).
+# chip_smoke.py prints the compensated and the plain route's display-dB
+# error at 8192 on the card: the EFTs survive only if the compiler neither
+# reassociates them nor contracts them into FMAs that change their
+# rounding. The cost is paid only on the 'accurate' tier's CT route
+# (nfft >= 2048 display/analysis configs), never on the dense headline
+# path. The residuals are ~eps scale, so their transforms tolerate one
+# default-precision pass. Note: the Dekker split constant 4097 = 2^12+1 is
 # f32-specific — the route is gated to f32 inputs (f64 validation runs
 # keep the plain path; their error is ~1e-12 already). Known limit: deep
 # spectral floors of near-pure TONES sit ~0.1-0.25 dB off scipy f64 in
@@ -658,8 +621,8 @@ def _ct_power_compensated(x: Array, cfg: SpecConfig,
     xr, xi = ct_dft_frames(fw, cfg.nfft_, factors, cfg.onesided,
                            cfg.n_freqs, matmul_precision(cfg),
                            compensate=True)
-    # the residual is O(eps * |fw|): a single-pass bf16 transform of it
-    # contributes O(1e-2 * eps) — one pass instead of HIGHEST's six
+    # the residual is O(eps * |fw|): one default-precision transform of it
+    # contributes far below eps — one pass instead of HIGHEST's
     rr, ri = ct_dft_frames(r, cfg.nfft_, factors, cfg.onesided,
                            cfg.n_freqs, jax.lax.Precision.DEFAULT)
     # |X+R|^2 as the SUM form, not |X|^2 + cross-term: the cross form can
@@ -683,7 +646,7 @@ def _use_compensated_ct(x: Array, cfg: SpecConfig) -> bool:
 
 
 def _matmul_dft(x: Array, cfg: SpecConfig) -> Tuple[Array, Array]:
-    """Real-DFT via MXU matmuls: the dense window/detrend-folded form for
+    """Real-DFT via matmuls: the dense window/detrend-folded form for
     small transforms, the two-stage factorized form (:func:`_ct_dft`)
     above CT_MIN_NFFT. (..., n) -> (X_re, X_im), (..., nframes, n_freqs).
 
@@ -708,12 +671,9 @@ def _dense_dft(x: Array, cfg: SpecConfig, freq_major: bool = False,
     the display path's layout with no transpose materialized on device.
     flip_freqs=True additionally reverses the matrix COLUMNS so frequency
     rows come out display-flipped (highest frequency first) with no
-    device-side flip pass: at the driver bench shape (B=1024, north-star
-    1024/256) folding the flip cut the full packed-image pipeline
-    0.0772 -> 0.0661 ms/clip, bit-identical packed words (the bare
-    freq-major transpose alone is already fused for free there). Per
-    output element the contraction is identical, so values are bitwise
-    equal to (flipped) swapaxes of the frame-major result.
+    device-side flip pass. Per output element the contraction is
+    identical, so values are bitwise equal to (flipped) swapaxes of the
+    frame-major result.
 
     band=(lo, hi) folds the reference's frequency row mask
     (PlotEngine.py:114-115) into the matrices too: only the masked bins'
@@ -730,17 +690,12 @@ def _dense_dft(x: Array, cfg: SpecConfig, freq_major: bool = False,
             x, [(0, 0)] * (x.ndim - 1) + [(cfg.nperseg // 2,) * 2],
             mode=cfg.pad_mode),
         cfg.nperseg, cfg.hop_)
-    # NOTE (measured negative result, v5e chip, 2026-08-17): a "packed"
-    # variant — [A_re | A_im interior] as ONE GEMM with exactly nfft output
-    # lanes (the imag DC/Nyquist columns are identically zero), saving 20%
-    # of padded-lane MACs at nfft=1024 (50% at 256) — was built, tested and
-    # chip-timed. The bare packed GEMM ran only ~3% faster (the stage is
-    # framing/HBM/fusion-bound, not MXU-FLOP-bound at these shapes) and the
-    # full PSD was ~8-10% SLOWER (0.078-0.079 vs 0.072 ms/clip at the
-    # north-star 1024/256 shape): XLA fuses re^2+im^2 into the two-matmul
-    # epilogues, while the packed form's slice/pad arithmetic breaks that
-    # fusion and costs more than the MAC saving returns. The explicit pair
-    # stays.
+    # NOTE: a "packed" variant — [A_re | A_im interior] as ONE GEMM with
+    # exactly nfft output columns (the imag DC/Nyquist columns are
+    # identically zero) — was slower end to end on the previous
+    # accelerator: XLA fuses re^2+im^2 into the two-matmul epilogues, and
+    # the packed form's slice/pad arithmetic breaks that fusion. Not
+    # measured on the H100.
     if use_device_dft(cfg):
         a_re_d, a_im_d = dft_matrices_device(cfg, raw.dtype)
         if band is not None:
@@ -934,9 +889,9 @@ def mask_band_rows(f: np.ndarray, sxx, fmin: Optional[float],
     """Apply the reference's frequency row mask (PlotEngine.py:114-115) to a
     freq-major spectrogram (..., F, T). Works on device or numpy arrays.
 
-    Uses a slice when the masked band is contiguous (one-sided spectra;
-    gathers are disproportionately slow on TPU) and falls back to a gather
-    for non-contiguous masks (two-sided fftfreq ordering)."""
+    Uses a slice when the masked band is contiguous (one-sided spectra; a
+    slice is a cheap copy where a gather is an indexed load) and falls back
+    to a gather for non-contiguous masks (two-sided fftfreq ordering)."""
     lo = fmin if fmin is not None else -np.inf
     hi = fmax if fmax is not None else np.inf
     mask = (f >= lo) & (f <= hi)

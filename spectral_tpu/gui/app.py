@@ -54,7 +54,7 @@ def build_window():
     class MainWindow(QtWidgets.QMainWindow):
         def __init__(self):
             super().__init__()
-            self.setWindowTitle("Spectrogram Generator (TPU)")
+            self.setWindowTitle("Spectrogram Generator (JAX)")
             self.session = AnalysisSession()
             self.controller = WindowController(self.session)
             self.controller.roi_editor.on_change = self._patches_changed

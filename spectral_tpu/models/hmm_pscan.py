@@ -3,15 +3,12 @@
 :mod:`spectral_tpu.models.hmm` keeps the reference-parity ``lax.scan``
 forms (hmmlearn semantics, PlotEngine.py:20/:411-445) — sequential over T,
 which is the right shape for the reference's ~600-frame sweeps but leaves
-the TPU >99% idle on hour-scale recordings (T ~ 5e4..7e5 frames at the
-streaming configs' hops): a tiny (K,K) op per sequential step. This module
-re-expresses the same passes as parallel-prefix combines over semiring
-matrix products — O(T K^3) parallel work that XLA tiles across the VPU,
-at ~128 + log(T/128) sequential depth via a two-level chunked scan (see
-the block comment above :func:`_prefix`; measured v5e forward pass at
-T=524288: ~25 ms, vs ~250 ms for plain ``lax.associative_scan`` and
-minutes for the lax.scan form) — and is numerically safe at T ~ 1e6 in
-f32:
+an accelerator nearly idle on hour-scale recordings (T ~ 5e4..7e5 frames
+at the streaming configs' hops): a tiny (K,K) op per sequential step. This
+module re-expresses the same passes as parallel-prefix combines over
+semiring matrix products — O(T K^3) parallel work, at ~128 + log(T/128)
+sequential depth via a two-level chunked scan (see the block comment
+above :func:`_prefix`) — and is numerically safe at T ~ 1e6 in f32:
 
   * forward/backward: log-semiring ((+, x) -> (logsumexp, +)) prefix /
     suffix products of the (K, K) transition+emission matrices. Raw
@@ -34,10 +31,10 @@ f32:
     T<=8192 in the tests). At longer T the SEQUENTIAL engine's deltas
     grow to -O(T) and lose the per-state differences to f32 quantization
     (eps*|delta| ~ 0.016 at T=65536), while this engine's rescaled
-    blocks stay bounded — measured on chip at T=65536: the engines
-    disagree on 0.3% of frames and the pscan path's f64 score is BETTER
-    (by ~1.2 nats), i.e. the disagreements are sequential-engine argmax
-    noise, not pscan error.
+    blocks stay bounded — at T=65536 the engines disagree on a fraction
+    of a percent of frames and the pscan path's f64 score is BETTER, i.e.
+    the disagreements are sequential-engine argmax noise, not pscan
+    error.
 
 Contracts match models/hmm.py exactly (same signatures, same return
 pytrees); equality against the sequential forms is pinned in
@@ -46,16 +43,11 @@ engine from PSCAN_THRESHOLD (2048) frames on EVERY backend — that is a
 CORRECTNESS boundary, not a tuning knob: the sequential f32 E-step's
 gamma drifts from the f64 oracle by 0.012 at T=601, 0.059 at 2048, O(1)
 at 4096, and overflows to inf by 65536, while this engine holds ~1.7e-7
-at every measured T. Speed on the accelerator agrees (v5e 5-iter fit:
-26/27 ms at T=4096/65536 vs the sequential 44/144 ms; at T=524288 — one
-hour of 48 kHz audio at the north-star hop — 57 ms, where the sequential
-form extrapolates to ~1.1 s). On XLA:CPU the sequential scan executes
-steps at ~0.1 us and is ~4-5x faster — which is why SHORT sequences stay
-on it; above the threshold correct statistics outrank the speed. A
-lanes-major (K,K,T) element layout was also measured and is NOT used:
-XLA already assigns an efficient layout to the (T,K,K) form (42.7 vs
-39.9 ms at T=65536 pre-chunking) — the win was the chunked scan, not the
-layout.
+at every measured T. Its speed on the H100 is not measured yet
+(chip_smoke.py times the T=524288 run). On XLA:CPU the sequential scan
+executes steps at ~0.1 us and is ~4-5x faster — which is why SHORT
+sequences stay on it; above the threshold correct statistics outrank the
+speed.
 """
 
 from __future__ import annotations
@@ -125,15 +117,14 @@ def _combine_log(a, b):
 # ---------------------------------------------------------------------------
 # Two-level chunked prefix/suffix scan
 #
-# jax.lax.associative_scan lowers to a stride-2 odd/even recursion whose
-# gathers dominate on TPU: the plain form costs ~250 ms for one forward
-# pass at T=524288. The classic decomposition — a lax.scan over a SHORT
-# chunk axis whose every step combines T/cs elements in parallel (fat,
-# batched semiring products), an associative_scan over the T/cs chunk
-# totals, then one batched broadcast combine — runs the same pass in
-# ~25 ms, nearly flat in T (measured on v5e; both numbers in
-# BENCH_REPORT.hmm_long_context). Below _CHUNKED_MIN the plain form wins
-# (no pad/relayout overhead), so small problems keep it.
+# jax.lax.associative_scan lowers to a stride-2 odd/even recursion of
+# strided gathers and slices at every level. The classic decomposition —
+# a lax.scan over a SHORT chunk axis whose every step combines T/cs
+# elements in parallel (fat, batched semiring products), an
+# associative_scan over the T/cs chunk totals, then one batched broadcast
+# combine — was ~10x faster on the previous accelerator at T=524288 and
+# nearly flat in T; not measured on the H100. Below _CHUNKED_MIN the plain
+# form wins (no pad/relayout overhead), so small problems keep it.
 # ---------------------------------------------------------------------------
 
 _CHUNK = 128          # sequential steps per pass; T/cs runs data-parallel

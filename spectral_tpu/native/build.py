@@ -1,7 +1,11 @@
 """Build the native components with the system C++ toolchain.
 
-Invoked lazily on first use (and cached); can also be run directly:
-``python -m spectral_tpu.native.build``.
+Every process that uses a native component compiles it from the source in
+this directory into a private temporary directory on first use (under a
+second for the PNG encoder): no prebuilt library in the tree is ever
+loaded, so a library left over from an older source or another machine
+cannot be picked up. ``python -m spectral_tpu.native.build`` checks that the
+toolchain builds every target.
 """
 
 from __future__ import annotations
@@ -9,6 +13,8 @@ from __future__ import annotations
 import os
 import subprocess
 import sys
+import tempfile
+from typing import Optional
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 
@@ -17,53 +23,28 @@ TARGETS = {
 }
 
 
-def lib_path(name: str) -> str:
-    return os.path.join(_DIR, name)
-
-
-def build(name: str, verbose: bool = False) -> bool:
-    """Compile one target. Returns True when the shared library exists and is
-    newer than its sources."""
+def build(name: str, out_dir: str, verbose: bool = False) -> Optional[str]:
+    """Compile one target from its sources into ``out_dir``. Returns the
+    library's path, or None when the toolchain is missing or refuses the
+    source."""
     srcs, libs = TARGETS[name]
-    out = lib_path(name)
-    src_paths = [os.path.join(_DIR, s) for s in srcs]
-    if os.path.exists(out) and all(
-            os.path.getmtime(out) >= os.path.getmtime(s) for s in src_paths):
-        return True
-    # compile to a unique temp path and os.rename into place: concurrent
-    # lazy builds (e.g. several process-pool encode workers triggering
-    # their first encode at once) would otherwise interleave g++ writes to
-    # the same -o file, and the corrupt .so — newer than its sources —
-    # would pass the freshness check forever after
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = (["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-o", tmp]
-           + src_paths + libs)
-    def _cleanup():
-        try:
-            os.remove(tmp)
-        except OSError:
-            pass
-
+    out = os.path.join(out_dir, name)
+    cmd = (["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-o", out]
+           + [os.path.join(_DIR, s) for s in srcs] + libs)
     try:
         res = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
     except (OSError, subprocess.TimeoutExpired):
-        _cleanup()
-        return False
+        return None
     if res.returncode != 0:
         if verbose:
             sys.stderr.write(res.stderr)
-        _cleanup()
-        return False
-    try:
-        os.rename(tmp, out)          # atomic within the directory
-    except OSError:
-        _cleanup()
-        return os.path.exists(out)   # a concurrent build won the race
-    return True
+        return None
+    return out
 
 
 def build_all(verbose: bool = False) -> bool:
-    return all(build(name, verbose) for name in TARGETS)
+    with tempfile.TemporaryDirectory(prefix="spectral_native_") as d:
+        return all(build(name, d, verbose) is not None for name in TARGETS)
 
 
 if __name__ == "__main__":

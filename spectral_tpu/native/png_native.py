@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import ctypes
+import tempfile
 from typing import Optional
 
 import numpy as np
@@ -18,24 +19,28 @@ def _load() -> Optional[ctypes.CDLL]:
     if _load_attempted:
         return _lib
     _load_attempted = True
-    if not _build.build("libspectpu_png.so"):
-        return None
-    try:
-        lib = ctypes.CDLL(_build.lib_path("libspectpu_png.so"))
-        lib.png_encode.restype = ctypes.c_long
-        lib.png_encode.argtypes = [
-            ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_char_p, ctypes.c_long]
-        lib.png_encode_bound.restype = ctypes.c_long
-        lib.png_encode_bound.argtypes = [ctypes.c_int, ctypes.c_int,
-                                         ctypes.c_int]
-        lib.png_encode_pal.restype = ctypes.c_long
-        lib.png_encode_pal.argtypes = [
-            ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_char_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_char_p, ctypes.c_long]
-        _lib = lib
-    except OSError:
-        _lib = None
+    # built from png_encoder.cpp into a private directory; the loaded
+    # library stays mapped after the directory is removed
+    with tempfile.TemporaryDirectory(prefix="spectral_png_") as d:
+        path = _build.build("libspectpu_png.so", d)
+        if path is None:
+            return None
+        try:
+            lib = ctypes.CDLL(path)
+        except OSError:
+            return None
+    lib.png_encode.restype = ctypes.c_long
+    lib.png_encode.argtypes = [
+        ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_char_p, ctypes.c_long]
+    lib.png_encode_bound.restype = ctypes.c_long
+    lib.png_encode_bound.argtypes = [ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_int]
+    lib.png_encode_pal.restype = ctypes.c_long
+    lib.png_encode_pal.argtypes = [
+        ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_char_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_char_p, ctypes.c_long]
+    _lib = lib
     return _lib
 
 

@@ -2,8 +2,9 @@
 
 The reference trains its HMM on one sequence in-process (PlotEngine.py:420).
 At fleet scale the natural extension is EM over a *batch* of sequences with
-the E-step sharded across chips: every chip computes sufficient statistics
-for its shard of sequences, the statistics are summed with an ICI all-reduce
+the E-step sharded across devices: every device computes sufficient
+statistics for its shard of sequences, the statistics are summed with an
+all-reduce
 (psum via jnp sums over a sharded batch under jit), and the M-step runs on
 the combined statistics — one global model per EM iteration, mathematically
 identical to single-chip EM over the concatenated batch.
@@ -40,7 +41,7 @@ def _batch_e_step(params: hmm.HMMParams, Xb: Array):
     def one(X):
         gamma, xi_sum, ll = e_step(params, X)
         # HIGHEST for the same reason as hmm._m_step: the covariance update
-        # is a cancellation, and TPU-default bf16 stats collapse the model.
+        # is a cancellation, and reduced-precision stats collapse the model.
         hp = jax.lax.Precision.HIGHEST
         return (gamma[0], xi_sum, jnp.sum(gamma, axis=0),
                 jnp.matmul(gamma.T, X, precision=hp),

@@ -1,8 +1,8 @@
 """Device-mesh helpers.
 
 The reference is strictly single-process (SURVEY.md §2: no multiprocessing /
-threading / IPC anywhere); scale-out here is jax.sharding over a TPU slice:
-batch ('data') and frame-block ('time') axes, with XLA inserting ICI
+threading / IPC anywhere); scale-out here is jax.sharding over the local
+devices: batch ('data') and frame-block ('time') axes, with XLA inserting
 collectives as needed. A virtual CPU mesh
 (``--xla_force_host_platform_device_count=N``) stands in for multi-chip
 hardware in tests and dry runs.
@@ -31,19 +31,9 @@ def make_mesh(shape: Optional[Tuple[int, ...]] = None,
     if n > len(devs):
         raise ValueError(f"mesh shape {shape} needs {n} devices, "
                          f"have {len(devs)}")
-    if n == len(devs):
-        # topology-aware placement on real hardware: mesh_utils arranges
-        # the grid so each mesh axis rides contiguous ICI links — a naive
-        # reshape can put non-adjacent chips on one axis and route
-        # collectives over slow links (results identical, throughput not)
-        try:
-            from jax.experimental import mesh_utils
-            arr = mesh_utils.create_device_mesh(shape, devices=devs)
-        except Exception:  # pragma: no cover - virtual/odd topologies
-            arr = np.array(devs).reshape(shape)
-    else:
-        arr = np.array(devs[:n]).reshape(shape)
-    return Mesh(arr, tuple(axis_names))
+    # plain device order: the cards of one host are joined all to all, so
+    # no placement puts an axis on faster links than another
+    return Mesh(np.array(devs[:n]).reshape(shape), tuple(axis_names))
 
 
 def batch_sharding(mesh: Mesh, ndim: int, batch_axis: str = "data"

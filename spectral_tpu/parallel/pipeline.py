@@ -41,6 +41,7 @@ class PipelineStats:
     #                              non-finite samples — no PNG is written
     skipped: int = 0             # resume=True: outputs that already existed
     tmp_cleaned: int = 0         # stale .tmp.<dead-pid> residue swept at start
+    devices: int = 0             # devices holding the last batch's output
     # per-stage breakdown (seconds; encode_s is summed worker CPU-seconds,
     # the others are wall time on their stage's thread)
     stage_s: float = 0.0         # producer: staging + async dispatch
@@ -111,7 +112,6 @@ def export_spectrograms(clips: Iterable[Tuple[str, np.ndarray]], fs: float,
                         cfg: SpecConfig, out_dir: str, *,
                         clip_samples: int, batch: int = 64,
                         colormap: str = "jet", compress_level: int = 3,
-                        use_pallas: bool = False,
                         encode_workers: Optional[int] = None,
                         prefetch: int = 2,
                         pixel_format: str = "palette",
@@ -139,13 +139,13 @@ def export_spectrograms(clips: Iterable[Tuple[str, np.ndarray]], fs: float,
     source files.
 
     mesh: a jax.sharding.Mesh shards the batch dimension over
-    ``batch_axis`` so every chip of a slice computes its shard of each
-    batch (the config-5 workload on a v5e-8; the reference's analog is a
-    serial single-process loop, ExportManager.py:146). The per-shard
-    program runs under shard_map, so both the XLA and the Pallas kernels
-    shard. `batch` must be divisible by the axis size. Pixels are
-    bit-identical to the unsharded path (no cross-clip communication
-    exists in this pipeline).
+    ``batch_axis`` so every device of the mesh computes its shard of each
+    batch (the config-5 workload; the reference's analog is a serial
+    single-process loop, ExportManager.py:146). The per-shard program runs
+    under shard_map. `batch` must be divisible by the axis size. Pixels
+    are bit-identical to the unsharded path (no cross-clip communication
+    exists in this pipeline). ``stats.devices`` records how many devices
+    held the last batch's output shards.
 
     encode_workers: size of the encode pool; None (default) uses one
     worker per host CPU (``os.cpu_count()``) — a fixed count can be
@@ -210,26 +210,13 @@ def export_spectrograms(clips: Iterable[Tuple[str, np.ndarray]], fs: float,
             else clip_samples
         n_frames = num_frames(n_pad, cfg.nperseg, cfg.hop_)
 
-    base = None
-    img_flipped = False
-    if use_pallas:
-        try:
-            from spectral_tpu.ops.stft_pallas import (pallas_pipeline_fn,
-                                                      pallas_supported)
-            if not pallas_supported(cfg):
-                raise ValueError
-            base = pallas_pipeline_fn(
-                fs, cfg, colormap=None if palette_mode else colormap)
-        except Exception:
-            use_pallas = False
-    if not use_pallas:
-        from spectral_tpu.parallel.sharding import batched_spectrogram_fn
-        # flip_image folds the PNG row order into the DFT matrix columns
-        # (no device-side flip pass; chip 0.0772 -> 0.0661 ms/clip)
-        img_flipped = True
-        base = batched_spectrogram_fn(
-            fs, cfg, use_matmul=True, flip_image=True,
-            colormap=None if palette_mode else colormap)
+    from spectral_tpu.parallel.sharding import batched_spectrogram_fn
+    # flip_image folds the PNG row order into the DFT matrix columns (no
+    # device-side flip pass)
+    base = batched_spectrogram_fn(
+        fs, cfg, use_matmul=True, flip_image=True,
+        colormap=None if palette_mode else colormap)
+
     def dev_in(x):
         # raw 16-bit PCM staged as int16: normalize on device (read_wav's
         # exact scaling) — half the upload bytes of f32
@@ -240,8 +227,7 @@ def export_spectrograms(clips: Iterable[Tuple[str, np.ndarray]], fs: float,
     def core(x):
         out = base(dev_in(x))
         if palette_mode:
-            pix = colormap_index_packed(out["image"],
-                                        flip_rows=not img_flipped)
+            pix = colormap_index_packed(out["image"], flip_rows=False)
         else:
             pix = out["rgb_packed"]
         return pix, out["finite"]
@@ -254,11 +240,7 @@ def export_spectrograms(clips: Iterable[Tuple[str, np.ndarray]], fs: float,
             raise ValueError(
                 f"batch ({batch}) must be divisible by the '{batch_axis}' "
                 f"mesh axis size ({n_shards})")
-        try:
-            shard_map = jax.shard_map
-        except AttributeError:  # pragma: no cover - older jax
-            from jax.experimental.shard_map import shard_map
-        fn = jax.jit(shard_map(core, mesh=mesh, in_specs=P(batch_axis),
+        fn = jax.jit(jax.shard_map(core, mesh=mesh, in_specs=P(batch_axis),
                                out_specs=(P(batch_axis), P(batch_axis))))
         in_sharding = NamedSharding(mesh, P(batch_axis))
     else:
@@ -351,6 +333,7 @@ def export_spectrograms(clips: Iterable[Tuple[str, np.ndarray]], fs: float,
             names, lens, packed, finite_d = item
             # blocks on this batch's device->host transfer only
             t0 = time.time()
+            stats.devices = len(packed.sharding.device_set)
             raw = np.asarray(packed)
             finite = np.asarray(finite_d)
             stats.d2h_s += time.time() - t0

@@ -1,12 +1,12 @@
 """Sharded batch pipelines (pjit / NamedSharding).
 
 The throughput workloads (BASELINE.json config 5: 10k clips end-to-end across
-a v5e-8) are embarrassingly parallel over clips: shard the batch dimension
-over the 'data' mesh axis and let every chip run the fused
-STFT -> scale -> colormap pipeline on its shard. The only cross-chip
+several devices) are embarrassingly parallel over clips: shard the batch
+dimension over the 'data' mesh axis and let every device run the fused
+STFT -> scale -> colormap pipeline on its shard. The only cross-device
 communication is the optional shared normalization maximum (the reference's
 ``global_max`` parameter, PlotEngine.py:78,110,126), which XLA lowers to an
-ICI all-reduce when requested.
+all-reduce when requested.
 """
 
 from __future__ import annotations
@@ -40,9 +40,8 @@ def batched_spectrogram_fn(fs: float, cfg: SpecConfig, *,
     flip_image=True emits "image" (and "rgb_packed") display-flipped —
     row 0 is the HIGHEST frequency, the PNG row order — with the flip
     folded into the DFT matrix columns on the dense route, so no
-    device-side flip pass exists anywhere in the image path (chip: full
-    packed pipeline 0.0772 -> 0.0661 ms/clip at the driver bench shape,
-    bit-identical packed words). "psd"/"mel" stay frame-major unflipped
+    device-side flip pass exists anywhere in the image path
+    (bit-identical packed words). "psd"/"mel" stay frame-major unflipped
     regardless.
 
     cfg.fmin/fmax mask frequency rows BEFORE normalization, exactly like
@@ -55,13 +54,13 @@ def batched_spectrogram_fn(fs: float, cfg: SpecConfig, *,
 
     psd_sharding (a NamedSharding over the freq-major (B, F, T) spectrum)
     pins the DFT contraction's layout under pjit: sharding F over a mesh
-    axis is TENSOR parallelism over frequency bins — each chip contracts
+    axis is TENSOR parallelism over frequency bins — each device contracts
     frames against its slice of the DFT matrix columns (the matrices are
-    generated on device inside jit, so each chip materializes only its
-    rows) and the downstream per-image max/min reductions become ICI
+    generated on device inside jit, so each device materializes only its
+    rows) and the downstream per-image max/min reductions become
     collectives. The reference has no counterpart (single-process scipy);
-    this is the TPU scaling form for huge-nfft spectra that outgrow one
-    chip.
+    this is the scaling form for huge-nfft spectra that outgrow one
+    device.
 
     Returns a plain jax-traceable function; wrap with jit/pjit via
     :func:`shard_pipeline` or call directly under vmap.
@@ -80,8 +79,7 @@ def batched_spectrogram_fn(fs: float, cfg: SpecConfig, *,
     def fn(xb: Array):
         # freq-major spine: the display/mel consumers want (B, F, T), and
         # power_spectrogram_fm folds that transpose into the dense DFT
-        # contraction (chip: 0.0906 -> 0.0803 ms/clip on the headline
-        # pipeline). The frame-major "psd" output transposes back — a cost
+        # contraction. The frame-major "psd" output transposes back — a cost
         # only paid when a caller actually consumes it (XLA DCEs it away
         # under jit otherwise), exactly mirroring the old layout's cost
         # when the image was consumed.
@@ -145,20 +143,20 @@ def time_sharded_spectrogram(mesh: Mesh, fs: float, cfg: SpecConfig, *,
 
     The dp/tp forms above parallelize over clips and frequency bins; this
     is the third mesh axis of the problem — a single recording too long
-    for one chip, sharded along TIME. Each device holds a contiguous span
+    for one device, sharded along TIME. Each device holds a contiguous span
     of samples and computes the frames that START in its span; because
     frames overlap by ``nperseg - hop`` samples, each device first fetches
     that many samples from its right neighbour with ONE
-    ``lax.ppermute`` (a nearest-neighbour ICI hop — no all-gather, no
+    ``lax.ppermute`` (one neighbour-to-neighbour copy — no all-gather, no
     full-signal replication anywhere). The reference has no counterpart
     (single-process scipy over the whole array, PlotEngine.py:113); this
-    is the TPU-native scaling form for pod-scale recordings.
+    is the scaling form for recordings too long for one device.
 
     Returns a jitted callable ``x (..., L) -> psd (..., L//hop, F)`` where
     the last axis of ``x`` and the frame axis of the output are sharded
     over ``seq_axis``. The output is an ordinary GSPMD global array:
     downstream reductions (band-power folds, normalization max) compose
-    under jit and lower to ICI collectives automatically.
+    under jit and lower to collectives automatically.
 
     The frame axis is the evenly-shardable ``L//hop``, NOT scipy's
     ``num_frames(L, nperseg, hop)``: the last ``L//hop - num_frames``
@@ -197,10 +195,6 @@ def time_sharded_spectrogram(mesh: Mesh, fs: float, cfg: SpecConfig, *,
     if seq_axis not in mesh.shape:
         raise ValueError(f"mesh has no axis {seq_axis!r}: {mesh.shape}")
     from spectral_tpu.core.stft import num_frames, power_spectrogram
-    try:
-        shard_map = jax.shard_map
-    except AttributeError:  # older jax
-        from jax.experimental.shard_map import shard_map
     D = mesh.shape[seq_axis]
     hop, nperseg = cfg.hop_, cfg.nperseg
     halo = nperseg - hop
@@ -241,9 +235,9 @@ def time_sharded_spectrogram(mesh: Mesh, fs: float, cfg: SpecConfig, *,
                 psd = psd * (g < t_total).astype(psd.dtype)[:, None]
             return psd
 
-        return shard_map(body, mesh=mesh,
-                         in_specs=P(*lead, seq_axis),
-                         out_specs=P(*lead, seq_axis, None))(x)
+        return jax.shard_map(body, mesh=mesh,
+                             in_specs=P(*lead, seq_axis),
+                             out_specs=P(*lead, seq_axis, None))(x)
 
     from spectral_tpu.utils.cache import enable_compilation_cache
     enable_compilation_cache()
@@ -266,14 +260,14 @@ def shard_pipeline(mesh: Mesh, fs: float, cfg: SpecConfig, *,
 
     freq_axis adds TENSOR parallelism over frequency bins on top of the
     data parallelism: the freq-major spectrum is constrained to
-    P(batch_axis, freq_axis, None), so each chip contracts frames against
-    its own slice of the (device-generated) DFT matrix columns and the
-    per-image normalization max/min ride ICI collectives across the freq
+    P(batch_axis, freq_axis, None), so each device contracts frames
+    against its own slice of the (device-generated) DFT matrix columns and
+    the per-image normalization max/min ride collectives across the freq
     shards. Outputs stay batch-sharded (GSPMD gathers the freq shards at
-    the boundary) — the win is that no chip ever materializes the full
+    the boundary) — the win is that no device ever materializes the full
     (B/dp, F, T) spectrum or the full DFT matrices, the scaling form for
     huge-nfft work. Mel configs compose: the mel contraction reduces over
-    the sharded F axis (an ICI reduce-scatter/all-reduce).
+    the sharded F axis (a reduce-scatter/all-reduce).
     """
     from spectral_tpu.utils.cache import enable_compilation_cache
     enable_compilation_cache()

@@ -121,11 +121,11 @@ class BlockStreamingSTFT:
     length L = B*chunk_size (both multiples of hop), the buffer yields
     (c + L - nperseg)//hop + 1 == L/hop complete frames at local offsets
     0, hop, 2*hop, ... — the same slots the chunk loop produces one chunk
-    at a time. One dispatch therefore runs ONE large MXU matmul (or batched
+    at a time. One dispatch therefore runs ONE large matmul (or batched
     rFFT) over L/hop frames instead of B host round-trips, which is what
     makes long-form audio (BASELINE config 4: 1 h @ 48 kHz, the workload
     scipy serves at PlotEngine.py:113 over concatenated sweeps :193)
-    TPU-fast while HBM stays bounded by the block size.
+    fast on the device while its memory stays bounded by the block size.
     """
 
     def __init__(self, fs: float, cfg: SpecConfig, chunk_size: int,
@@ -226,7 +226,7 @@ class ScanStreamer:
     batch > 0 streams a FLEET of equal-length recordings together: the scan
     still walks chunk blocks, but each step computes the block for every
     recording at once (psd_block (batch, frames_per_block, F)). Shard the
-    batch dim over a mesh ('data' axis) and each chip streams its
+    batch dim over a mesh ('data' axis) and each device streams its
     recordings — long-form data parallelism (exercised by
     __graft_entry__.dryrun_multichip). With the default unroll=None, a
     fleet whose batch dim arrives PARTITIONED over a mesh is detected at
@@ -266,22 +266,17 @@ class ScanStreamer:
         lead = (batch,) if batch else ()
 
         # Small fleets (0 < batch < 8) unroll per-recording MONO bodies
-        # inside the scan step instead of batched (B, ...) arrays: TPU
-        # tiles the LAST TWO dims to (8, 128) sublanes x lanes, so every
-        # (B, n)-shaped giant — the staged input, the (nb, B, L) scan xs
-        # of the old one-transpose layout — physically occupies 8/B x its
-        # logical bytes (4x at stereo), and under a full bench's memory
-        # pressure those padded giants turned a 0.076 s hour into 0.377 s
-        # (BENCH_REPORT r3 stereo row; standalone the batched form ties
-        # mono, so the cost is allocator pressure, not the step compute).
-        # Per-recording xs are (nb, L) — unpadded — and the fold still
-        # sees the stacked (B, fpb, F) psd (last two dims full), so the
-        # fold contract is unchanged. At batch >= 8 the sublanes are full
-        # and the batched form is kept (no B-fold program duplication).
-        # unroll=None applies this single-chip heuristic; a fleet whose
-        # batch dim arrives PARTITIONED over a mesh is rerouted to the
-        # batched form at call time (__call__ checks x.sharding) so each
-        # chip keeps streaming only its own recordings.
+        # inside the scan step instead of batched (B, ...) arrays: the
+        # scan xs are then per-recording (nb, L) arrays, and the fold
+        # still sees the stacked (B, fpb, F) psd, so the fold contract is
+        # unchanged. The bound 8 was tuned for the previous accelerator's
+        # (8, 128) memory tiling and is not measured on the H100. At
+        # batch >= 8 the batched form is kept (no B-fold program
+        # duplication). unroll=None applies this single-device heuristic;
+        # a fleet whose batch dim arrives PARTITIONED over a mesh is
+        # rerouted to the batched form at call time (__call__ checks
+        # x.sharding) so each device keeps streaming only its own
+        # recordings.
         if unroll is None:
             unroll_fleet = 0 < batch < 8
         else:
@@ -316,17 +311,12 @@ class ScanStreamer:
 
             def run(blocks, init):
                 # blocks arrive pre-shaped lead + (nb, L) from __call__
-                # (host inputs upload in this form directly — a (B, n)
-                # staging array would sublane-pad 8/B x on device). They
-                # become scan xs (per-recording (nb, L) arrays for small
-                # fleets; a transpose copy for batch >= 8). Two
-                # alternatives measured SLOWER on v5e and were rejected:
-                # lax.dynamic_slice windows in the scan body (200x: 16.2 s
-                # vs 0.08 s/hour — XLA pipelines xs but can't prefetch
-                # body-side windows) and a channels-last (n, B) layout with
-                # per-block transposes (43x: 15.0 s vs 0.35 s — a
-                # minor-dim-of-2 tile transpose per step is pathological
-                # for TPU lane layout).
+                # (host inputs upload in this form directly). They become
+                # scan xs (per-recording (nb, L) arrays for small fleets; a
+                # transpose copy for batch >= 8). lax.dynamic_slice
+                # windows in the scan body and a channels-last (n, B)
+                # layout were both slower on the previous accelerator;
+                # neither is measured on the H100.
                 if unrolled:
                     xs = (jnp.arange(n_blocks),) + tuple(
                         blocks[b] for b in range(batch))
@@ -360,8 +350,7 @@ class ScanStreamer:
             self.n_blocks, self.block_size)
         if isinstance(x, np.ndarray):
             # pad + reshape on HOST: the upload lands as lead + (nb, L)
-            # whose last two dims are sublane-full — a (B, n) device
-            # staging array would occupy 8/B x its logical bytes
+            # directly, with no device-side pad or relayout copy
             xp = jnp.asarray(
                 np.pad(np.asarray(x, np.float32), pad_spec).reshape(shape))
         else:
@@ -373,10 +362,10 @@ class ScanStreamer:
         self.last_layout = ("unrolled" if self._unroll_fleet
                             else "batched" if self.batch else "single")
         if self._run_batched is not None and not isinstance(x, np.ndarray):
-            # the default-heuristic unroll is single-chip only: a fleet
+            # the default-heuristic unroll is single-device only: a fleet
             # whose batch dim is partitioned over a mesh would be gathered
-            # onto every chip by the per-recording xs slicing — reroute it
-            # through the batched layout (one recording per chip)
+            # onto every device by the per-recording xs slicing — reroute
+            # it through the batched layout (one recording per device)
             sh = getattr(x, "sharding", None)
             try:
                 partitioned = (sh is not None
@@ -395,8 +384,8 @@ def scan_spectrogram(x, fs: float, cfg: SpecConfig, chunk_size: int,
                      mesh=None, seq_axis: str = "data") -> Array:
     """Fully device-resident streaming STFT: ONE dispatch for the whole
     signal, `lax.scan` over staged chunk blocks with the overlap carry
-    threaded as scan state (VERDICT round-1 item 1). Working set per scan
-    step is one block; the stacked PSD lands in HBM and is returned trimmed
+    threaded as scan state. Working set per scan step is one block; the
+    stacked PSD lands in device memory and is returned trimmed
     to the monolithic frame grid, identical to power_spectrogram(x).
 
     With ``mesh`` (and >1 device on ``seq_axis``) the recording is instead
@@ -404,8 +393,10 @@ def scan_spectrogram(x, fs: float, cfg: SpecConfig, chunk_size: int,
     :func:`spectral_tpu.parallel.sharding.time_sharded_spectrogram` — each
     device holds a contiguous span of samples, fetches the nperseg-hop halo
     from its right neighbour with one ``lax.ppermute``, and computes only
-    its own frames. The sample axis is zero-padded up to a multiple of
-    D*hop so every frame start lands in exactly one shard; the returned
+    its own frames. The sample axis is zero-padded on the host up to a
+    multiple of D*hop (so every frame start lands in exactly one shard) and
+    placed straight into its time sharding — no device ever holds the
+    whole recording; the returned
     PSD is sliced back to the monolithic frame grid (the slice gathers
     only at the consumer boundary). Falls back to the single-device scan
     when the sharded form cannot apply: centered framing (the scipy
@@ -427,12 +418,11 @@ def scan_spectrogram(x, fs: float, cfg: SpecConfig, chunk_size: int,
                 time_sharded_spectrogram)
             lead = (None,) * (x.ndim - 1)
             sh = NamedSharding(mesh, PartitionSpec(*lead, seq_axis))
-            xp = jnp.asarray(x)
+            xh = np.asarray(x, np.float32)
             if Lp != L0:
-                pad = [(0, 0)] * (xp.ndim - 1) + [(0, Lp - L0)]
-                xp = jnp.pad(xp, pad)
-            xp = jax.device_put(xp, sh)
-            psd = time_sharded_spectrogram(mesh, fs, cfg,
+                xh = np.pad(xh, [(0, 0)] * (xh.ndim - 1) + [(0, Lp - L0)])
+            xp = jax.device_put(xh, sh)
+            psd = time_sharded_spectrogram(mesh, fs, cfg, seq_axis=seq_axis,
                                            use_matmul=use_matmul
                                            if use_matmul is not None
                                            else True)(xp)
@@ -506,8 +496,9 @@ def stream_band_powers(x, fs: float, cfg: SpecConfig, chunk_size: int,
     def fold(acc, psd, valid):
         band_acc, tot = acc
         p = jnp.maximum(psd, 0.0) * valid[:, None].astype(psd.dtype)
-        # HIGHEST: the TPU-default dot would round the PSD to bf16 before
-        # the band reductions (core/events.py has the same guard)
+        # HIGHEST: a default-precision f32 dot may run in reduced
+        # precision (TF32 on the GPU) inside the band reductions
+        # (core/events.py has the same guard)
         hp = jax.lax.Precision.HIGHEST
         return (band_acc + jnp.sum(jnp.matmul(p, masks_j.T, precision=hp),
                                    axis=0),
@@ -580,8 +571,8 @@ def stream_features(x, fs: float, cfg: SpecConfig, chunk_size: int,
     hp = jax.lax.Precision.HIGHEST
 
     def fold(acc, psd, valid):
-        # HIGHEST for the same reason as events._features_core: the
-        # TPU-default dot rounds the PSD to bf16 inside the band reduction
+        # HIGHEST for the same reason as events._features_core: a
+        # default-precision dot may round the PSD (TF32 on the GPU)
         return acc, jnp.einsum("tf,f->t", psd.astype(jnp.float32), w,
                                precision=hp)
 

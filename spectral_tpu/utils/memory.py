@@ -14,7 +14,7 @@ RSS 445 -> 915 MB while the same soak pinned to one config stayed at
 drops every compiled program (``jax.clear_caches()``) plus this
 package's jitted-program wrappers. The next dispatch of each program
 recompiles — slow once (the persistent compilation cache,
-utils/cache.py, makes TPU recompiles cheap) — and memory is bounded.
+utils/cache.py, makes recompiles cheap) — and memory is bounded.
 Wired into the serve worker per request (cli.py) and the session after
 each plot (api/session.py); threshold from SPECTRAL_TPU_MAX_RSS_MB
 (0/unset = disabled for the session path; serve defaults to 8192).

@@ -3,7 +3,7 @@
 The reference's only observability is print("[DEBUG] ...") statements and a
 status label (SURVEY.md §5). Here: a std-logging based structured logger, a
 throughput meter in the benchmark's units (frames/s, audio-hours/min), timer
-contexts, and jax.profiler wrappers for TPU traces.
+contexts, and jax.profiler wrappers for device traces.
 """
 
 from __future__ import annotations

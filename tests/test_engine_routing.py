@@ -1,9 +1,9 @@
-"""Backend-aware STFT engine auto-routing (core.stft.default_use_matmul).
+"""STFT engine auto-routing (core.stft.default_use_matmul).
 
-use_matmul=None must resolve to the MXU matmul/CT engine on TPU (measured
-faster at every size on v5e — BENCH_REPORT stft_* rows) and to the
-O(N log N) FFT engine on every other backend, and the resolved path must
-be bit-identical to the explicitly pinned engine.
+use_matmul=None must resolve to XLA's O(N log N) FFT engine on every
+backend — the CPU here and the GPU (cuFFT) on the card — and the resolved
+path must be bit-identical to the explicitly pinned engine. The dense DFT
+and CT matmul engines run only when pinned.
 """
 
 import jax
@@ -23,30 +23,20 @@ def x():
 def test_default_use_matmul_backend_aware(monkeypatch):
     # conftest pins the cpu platform
     assert st.default_use_matmul() is False
-    monkeypatch.setattr(st.jax, "default_backend", lambda: "tpu")
-    assert st.default_use_matmul() is True
+    monkeypatch.setattr(st.jax, "default_backend", lambda: "gpu")
+    assert st.default_use_matmul() is False
 
 
-def test_nfft_128_routes_to_fft_on_tpu(monkeypatch):
-    """nfft=128 is the one measured size where the FFT engine beats every
-    matmul variant on v5e (see default_use_matmul's docstring) — the auto
-    route must pick FFT there, on exactly that size, including when 128 is
-    reached via zero-padding."""
-    monkeypatch.setattr(st.jax, "default_backend", lambda: "tpu")
-    assert st.default_use_matmul(SpecConfig.scipy_default(128)) is False
-    assert st.default_use_matmul(SpecConfig.north_star(128, 32)) is False
-    assert st.default_use_matmul(
-        SpecConfig(nperseg=100, nfft=128, hop=25)) is False
-    for cfg in (SpecConfig.scipy_default(64), SpecConfig.scipy_default(256),
-                SpecConfig.scipy_default(1024)):
-        assert st.default_use_matmul(cfg) is True
-    # the FFT route still computes the same answer
-    rng = np.random.RandomState(3)
-    x = rng.randn(4096).astype(np.float32)
-    cfg = SpecConfig.north_star(128, 32)
-    auto = np.asarray(st.power_spectrogram(x, 1000.0, cfg))
-    fft = np.asarray(st.power_spectrogram(x, 1000.0, cfg, use_matmul=False))
-    assert np.array_equal(auto, fft)
+@pytest.mark.parametrize("cfg", [
+    SpecConfig.scipy_default(128), SpecConfig.north_star(128, 32),
+    SpecConfig(nperseg=100, nfft=128, hop=25), SpecConfig.scipy_default(64),
+    SpecConfig.scipy_default(256), SpecConfig.scipy_default(1024),
+    SpecConfig.scipy_default(8192)], ids=lambda c: f"{c.nperseg}_{c.nfft_}")
+def test_auto_routes_to_fft_under_gpu_backend_every_shape(cfg, monkeypatch):
+    """No shape exception: every nfft — including the sizes the CT and
+    dense engines cover — auto-routes to the FFT engine on the GPU."""
+    monkeypatch.setattr(st.jax, "default_backend", lambda: "gpu")
+    assert st.default_use_matmul(cfg) is False
 
 
 def test_auto_routes_to_fft_on_cpu(x):
@@ -56,15 +46,15 @@ def test_auto_routes_to_fft_on_cpu(x):
     assert np.array_equal(auto, fft)
 
 
-def test_auto_routes_to_matmul_under_tpu_backend(x, monkeypatch):
-    monkeypatch.setattr(st.jax, "default_backend", lambda: "tpu")
+def test_auto_routes_to_fft_under_gpu_backend(x, monkeypatch):
+    monkeypatch.setattr(st.jax, "default_backend", lambda: "gpu")
     cfg = SpecConfig.north_star(256, 64)
     auto = np.asarray(st.power_spectrogram(x, 1000.0, cfg))
-    mm = np.asarray(st.power_spectrogram(x, 1000.0, cfg, use_matmul=True))
-    assert np.array_equal(auto, mm)
+    fft = np.asarray(st.power_spectrogram(x, 1000.0, cfg, use_matmul=False))
+    assert np.array_equal(auto, fft)
     # sanity: on this input the two engines differ in the low ulps, so
     # array_equal above genuinely distinguishes the routes
-    fft = np.asarray(st.power_spectrogram(x, 1000.0, cfg, use_matmul=False))
+    mm = np.asarray(st.power_spectrogram(x, 1000.0, cfg, use_matmul=True))
     assert not np.array_equal(mm, fft)
     assert np.allclose(mm, fft, rtol=1e-4, atol=1e-9)
 
@@ -87,11 +77,9 @@ def test_streaming_defaults_auto_route(x, monkeypatch):
     out_auto = np.asarray(scan_spectrogram(x, 1000.0, cfg, chunk_size=512))
     mono = np.asarray(st.power_spectrogram(x, 1000.0, cfg, use_matmul=False))
     np.testing.assert_allclose(out_auto, mono, rtol=1e-4, atol=1e-10)
-    monkeypatch.setattr(st.jax, "default_backend", lambda: "tpu")
-    out_tpu = np.asarray(scan_spectrogram(x, 1000.0, cfg, chunk_size=512))
-    mono_mm = np.asarray(st.power_spectrogram(x, 1000.0, cfg,
-                                              use_matmul=True))
-    np.testing.assert_allclose(out_tpu, mono_mm, rtol=1e-4, atol=1e-10)
+    monkeypatch.setattr(st.jax, "default_backend", lambda: "gpu")
+    out_gpu = np.asarray(scan_spectrogram(x, 1000.0, cfg, chunk_size=512))
+    np.testing.assert_allclose(out_gpu, mono, rtol=1e-4, atol=1e-10)
 
 
 def test_center_true_fft_engine_matches_matmul_and_manual_pad(x):

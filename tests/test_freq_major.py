@@ -7,8 +7,8 @@ equality with the transposed frame-major result on every route (dense,
 device-matrix dense, CT, FFT, magnitude, linear detrend, zero-padded),
 and that the batched pipeline's outputs are unchanged by the rewire.
 
-Equality note: on TPU the freq-major einsum produced BIT-identical packed
-images (chip-measured); on the CPU backend XLA canonicalizes the einsum
+Equality note: on the previous accelerator the freq-major einsum produced
+BIT-identical packed images; on the CPU backend XLA canonicalizes the einsum
 to a differently-accumulated dot, so these tests assert tight float
 parity rather than bitwise equality.
 """
@@ -213,9 +213,7 @@ def test_fm_band_fold_matches_full(x, um, flip):
     matrix columns and each retained element is the same dot product;
     CT/FFT routes slice. CPU XLA retiles the gemm for the narrower
     matrix, reassociating the contraction (~1e-8 noise, same class as
-    the module-header note), so the assertion is a tight allclose here;
-    on the TPU's fixed-order MXU the fold is expected bitwise and is
-    chip-verified."""
+    the module-header note), so the assertion is a tight allclose here."""
     for cfg in (SpecConfig.scipy_default(256),
                 SpecConfig.north_star(512, 128),
                 SpecConfig.scipy_default(2048)):   # CT route when um

@@ -2,7 +2,7 @@
 
 Pixel/value parity tests cannot catch a sharding regression: if an
 in_spec change makes XLA all-gather the whole batch onto every device,
-the numbers still match — only the HLO (and the ICI bill at scale)
+the numbers still match — only the HLO (and the interconnect bill at scale)
 reveals it. These tests compile the sharded entry points on the 8-device
 CPU mesh and assert the collective inventory the designs promise:
 

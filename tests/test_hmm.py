@@ -328,7 +328,7 @@ def test_unsupervised_fit_decode_matches_staged_flow():
                                   np.asarray(states_staged))
 
 
-# ---- TPU matmul-precision guard --------------------------------------------
+# ---- matmul-precision guard ------------------------------------------------
 
 def _dot_precisions(jaxpr):
     """Collect the precision of every dot_general in a (nested) jaxpr."""
@@ -345,12 +345,12 @@ def _dot_precisions(jaxpr):
 
 
 def test_em_dots_are_highest_precision():
-    """On TPU the default dot rounds f32 operands to bf16; through the
-    M-step's cancellation-prone covariance update that collapses EM to a
-    degenerate model (measured on v5e: 2-iteration convergence to
-    ll=-425 and ZERO detected events on the burst fixture, vs the correct
-    CPU decode). Every dot in the fused detection program must therefore
-    carry explicit HIGHEST precision."""
+    """A default-precision dot rounds f32 operands (TF32 on the GPU, bf16
+    on the previous accelerator); through the M-step's cancellation-prone
+    covariance update that collapses EM to a degenerate model (2-iteration
+    convergence to ll=-425 and ZERO detected events on the burst fixture,
+    vs the correct CPU decode). Every dot in the fused detection program
+    must therefore carry explicit HIGHEST precision."""
     X, _ = _two_state_data()
     p0 = hmm.init_params(X, 4, seed=42)
     closed = jax.make_jaxpr(

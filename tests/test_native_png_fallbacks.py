@@ -20,7 +20,7 @@ def fresh_binding(monkeypatch):
 
 
 def test_build_failure_means_unavailable(fresh_binding, monkeypatch):
-    monkeypatch.setattr(pn._build, "build", lambda name: False)
+    monkeypatch.setattr(pn._build, "build", lambda name, out_dir: None)
     assert pn.available() is False
     with pytest.raises(RuntimeError, match="unavailable"):
         pn.encode(np.zeros((2, 2, 4), np.uint8))
@@ -30,7 +30,8 @@ def test_build_failure_means_unavailable(fresh_binding, monkeypatch):
 
 
 def test_cdll_load_failure_means_unavailable(fresh_binding, monkeypatch):
-    monkeypatch.setattr(pn._build, "build", lambda name: True)
+    monkeypatch.setattr(pn._build, "build",
+                        lambda name, out_dir: f"{out_dir}/{name}")
 
     def no_dlopen(path):
         raise OSError("not a shared object")

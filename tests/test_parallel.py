@@ -767,29 +767,9 @@ def test_checkpoint_roundtrip_and_missing(tmp_path):
     np.testing.assert_allclose(np.asarray(got7.means), np.asarray(p.means))
 
 
-def test_export_pipeline_pallas_palette(tmp_path):
-    # the Pallas STFT path composed with palette output must write the same
-    # pixels as the XLA path (modulo <0.5% LUT-edge flips from different
-    # accumulation order)
-    from spectral_tpu.parallel.pipeline import export_spectrograms
-    from spectral_tpu.render.png import decode_png
-    fs = 8000.0
-    n = 8000
-    clips = [("p0", np.random.RandomState(0).randn(n).astype(np.float32))]
-    cfg = SpecConfig.north_star(256, 64, log_scale=True)
-    export_spectrograms(iter(list(clips)), fs, cfg, str(tmp_path / "x"),
-                        clip_samples=n, batch=1)
-    export_spectrograms(iter(list(clips)), fs, cfg, str(tmp_path / "p"),
-                        clip_samples=n, batch=1, use_pallas=True)
-    a = decode_png(str(tmp_path / "x" / "p0.png"))
-    b = decode_png(str(tmp_path / "p" / "p0.png"))
-    assert a.shape == b.shape
-    assert (a != b).mean() < 5e-3
-
-
 def test_distributed_em_dots_are_highest_precision():
     """Same guard as tests/test_hmm.py::test_em_dots_are_highest_precision
-    but for the sharded EM program: the TPU-default bf16 dot rounding
+    but for the sharded EM program: a reduced-precision default dot
     collapses EM through the covariance cancellation, so every dot in
     em_step must carry explicit HIGHEST precision."""
     def _dot_precisions(jaxpr):
@@ -1307,3 +1287,49 @@ def test_scan_spectrogram_mesh_falls_back_when_inapplicable():
     tiny = np.asarray(scan_spectrogram(np.zeros(8, np.float32), fs, cfg,
                                        512, mesh=mesh))
     assert tiny.shape == (0, cfg.nperseg // 2 + 1)
+
+
+@pytest.mark.parametrize("shape,axes,seq_axis", [
+    ((8,), ("time",), "time"),
+    ((2, 4), ("data", "seq"), "seq"),
+], ids=["1d_time", "2d_seq"])
+def test_scan_spectrogram_mesh_forwards_seq_axis(shape, axes, seq_axis):
+    """scan_spectrogram(mesh=...) shards along the caller's seq_axis, not
+    the default 'data' name: a mesh without a 'data' axis used to fail
+    inside time_sharded_spectrogram. The recording is padded on the host
+    (its length is not a multiple of D*hop) and placed straight into the
+    time sharding; the result equals the monolithic PSD."""
+    from jax.sharding import Mesh
+    from spectral_tpu.parallel.streaming import scan_spectrogram
+    mesh = Mesh(np.array(jax.devices()[:int(np.prod(shape))]).reshape(shape),
+                axes)
+    cfg = SpecConfig.north_star(256, 64)
+    D = mesh.shape[seq_axis]
+    x = np.random.RandomState(3).randn(D * 64 * 40 + 123).astype(np.float32)
+    psd = scan_spectrogram(x, 1000.0, cfg, chunk_size=512, mesh=mesh,
+                           seq_axis=seq_axis)
+    mono = power_spectrogram(jnp.asarray(x), 1000.0, cfg, use_matmul=True)
+    assert psd.shape == mono.shape
+    np.testing.assert_allclose(np.asarray(psd), np.asarray(mono),
+                               rtol=2e-5, atol=1e-9)
+    assert len(psd.sharding.device_set) == D * (np.prod(shape) // D)
+
+
+def test_scan_spectrogram_mesh_pads_on_host(monkeypatch):
+    """The D*hop padding happens in host memory: no device-side pad of the
+    whole recording runs before it is sharded."""
+    from jax.sharding import Mesh
+    from spectral_tpu.parallel import streaming
+    calls = []
+    real_pad = jnp.pad
+
+    def spy(a, *args, **kw):
+        calls.append(getattr(a, "shape", None))
+        return real_pad(a, *args, **kw)
+    monkeypatch.setattr(streaming.jnp, "pad", spy)
+    mesh = Mesh(np.array(jax.devices()[:4]), ("time",))
+    cfg = SpecConfig.north_star(256, 64)
+    x = np.random.RandomState(4).randn(4 * 64 * 30 + 77).astype(np.float32)
+    streaming.scan_spectrogram(x, 1000.0, cfg, chunk_size=512, mesh=mesh,
+                               seq_axis="time")
+    assert x.shape not in calls

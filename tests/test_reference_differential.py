@@ -47,7 +47,7 @@ FS = 1000.0
 def burst_signal(rng, n=30_000, spans=((8.0, 11.0), (18.0, 22.0)),
                  base_amp=0.05, burst_amp=1.2, f0=15.0):
     """Noise floor with strong oscillatory bursts — the well-separated
-    regime where detection is backend-stable (docs/ROUND3.md block-1)."""
+    regime where detection is backend-stable."""
     t = np.arange(n) / FS
     x = base_amp * rng.randn(n)
     for a, b in spans:

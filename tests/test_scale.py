@@ -102,8 +102,9 @@ def test_inf_pixel_matches_elementwise_reference():
 
 
 def test_db_rescale_ends_in_clamp_jaxpr_guard():
-    """Structural guard for a chip-only behavior: on TPU the dB min-max
-    rescale's reciprocal-multiply can overshoot the max pixel to
+    """Structural guard for an accelerator-only behavior: a compiler that
+    rewrites the dB min-max rescale as a reciprocal-multiply can overshoot
+    the max pixel to
     1.0000001, so core/scale clips the rescaled image to [0, 1] after
     the division (before the degenerate-range select). On CPU the
     division lands at exactly 1.0, so no value test here can catch
@@ -130,4 +131,4 @@ def test_db_rescale_ends_in_clamp_jaxpr_guard():
     tail = prims[last_div + 1:]
     assert "max" in tail and "min" in tail, (
         "normalize(log_scale=True) must clip AFTER the rescale division "
-        f"(TPU 1-ulp overshoot guard); ops after the last div: {tail}")
+        f"(1-ulp overshoot guard); ops after the last div: {tail}")

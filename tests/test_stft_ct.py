@@ -1,7 +1,7 @@
 """Cooley-Tukey two-stage matmul DFT (core/stft.py::_ct_dft).
 
 Above CT_MIN_NFFT the matmul engine factorizes the transform as two
-MXU-shaped stages (N = 128 * N2) instead of one dense window-folded
+GEMM stages (N = 128 * N2) instead of one dense window-folded
 matrix. These tests pin the dispatch gating and prove the factorized
 path bit-parity-class equal to both the dense path it replaces and the
 scipy f64 oracle (reference contract: PlotEngine.py:113).

@@ -51,8 +51,7 @@ def test_sweep_grid_shards_over_clip_batch():
     """Config-3 at scale is embarrassingly CLIP-parallel: the batched grid
     jitted with the batch dim sharded over an 8-device mesh must (a) equal
     the unsharded result and (b) lower with NO cross-clip collectives —
-    each chip sweeps its own clips, so the v5e-8 rate is 8x the measured
-    per-chip rate (BENCH_REPORT sweep_grid_batched's projection)."""
+    each device sweeps its own clips."""
     import jax
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
     fs = 8000.0
